@@ -4,7 +4,7 @@
 // into a persistently mapped double PBO under a mutex
 // (reference: framework/NetKinectArray.cpp:484-544,
 //  framework/double_pixel_buffer.cpp, framework/io/FileBuffer.cpp).
-// This is the TPU framework's equivalent: a GIL-free pump thread moves
+// This is the framework's equivalent: a GIL-free pump thread moves
 // frames from a looping stream file (or any producer via ring_push) into a
 // single latest-frame slot; Python consumes via ctypes into pinned numpy
 // buffers and hands them to jax.device_put. Drop-to-latest == ZMQ RCVHWM=1.

@@ -14,7 +14,6 @@ Run (CPU): python scripts/make_golden.py
 import os
 import sys
 
-os.environ.setdefault("JAX_PLATFORMS", "cpu")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, "tests"))
@@ -33,14 +32,14 @@ SCENE = dict(
 
 
 def build_scene():
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
-    from rgbd_recon_tpu.calib.sensors import build_synthetic_calibration
-    from rgbd_recon_tpu.core.config import PipelineConfig
-    from rgbd_recon_tpu.core.grid import BoundingBox
-    from rgbd_recon_tpu.recon import TsdfPipeline
-    from rgbd_recon_tpu.sensors.synthetic import (
+    """The fixture's pipeline, frames, bbox and calibration, built on the
+    default JAX backend (the CPU when generating the fixture; the GPU when
+    chip_smoke.py checks the card against it)."""
+    from rgbd_recon.calib.sensors import build_synthetic_calibration
+    from rgbd_recon.core.config import PipelineConfig
+    from rgbd_recon.core.grid import BoundingBox
+    from rgbd_recon.recon import TsdfPipeline
+    from rgbd_recon.sensors.synthetic import (
         SyntheticScene,
         default_test_rig,
         render_rig_frames,
@@ -71,6 +70,61 @@ def build_scene():
     return pipe, frames, bbox, calib
 
 
+FIXTURE = os.path.join(REPO, "tests", "golden", "golden_small.npz")
+
+
+def run_jax(pipe, frames):
+    """(maps, volume, render output) of the fixture's scene through the
+    JAX exact-parity pipeline."""
+    from rgbd_recon.ops.raymarch import ViewCamera
+
+    s = SCENE
+    maps, counts = pipe.preprocess(frames)
+    volume = pipe.integrate(maps, counts)
+    camera = ViewCamera(
+        width=s["width"], height=s["height"], eye=s["eye"],
+        target=s["target"], fov_y=s["fov_y"], near=s["near"], far=s["far"],
+    )
+    out = pipe.make_renderer(camera)(volume, maps, counts)
+    return maps, volume, out
+
+
+def check_maps(golden, maps):
+    """The fixture's stored inputs must equal the current preprocess
+    output — otherwise the comparisons below compare different frames."""
+    np.testing.assert_allclose(
+        np.asarray(maps.depth[..., 0]), golden["maps_depth"],
+        rtol=1e-5, atol=1e-6,
+    )
+    np.testing.assert_allclose(
+        np.asarray(maps.quality), golden["maps_quality"],
+        rtol=1e-4, atol=1e-6,
+    )
+
+
+def check_volume(golden, volume):
+    np.testing.assert_allclose(
+        np.asarray(volume), golden["volume"], rtol=1e-4, atol=1e-6
+    )
+
+
+def check_render(golden, out):
+    hit_j = np.asarray(out.hit)
+    hit_n = golden["hit"]
+    # hit masks must agree except at most a couple of knife-edge pixels
+    assert (hit_j != hit_n).sum() <= max(2, int(0.02 * hit_n.sum())), (
+        int(hit_j.sum()), int(hit_n.sum()))
+    both = hit_j & hit_n
+    np.testing.assert_allclose(
+        np.asarray(out.depth)[both], golden["depth"][both],
+        rtol=0, atol=2e-4,
+    )
+    np.testing.assert_allclose(
+        np.asarray(out.color)[both], golden["color"][both],
+        rtol=0, atol=1e-3,
+    )
+
+
 def main():
     import golden_np
 
@@ -99,9 +153,8 @@ def main():
         s["near"], s["far"], s["tsdf_limit"], s["num_lods"], max_steps,
     )
 
-    outdir = os.path.join(REPO, "tests", "golden")
-    os.makedirs(outdir, exist_ok=True)
-    path = os.path.join(outdir, "golden_small.npz")
+    path = FIXTURE
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     np.savez_compressed(
         path,
         volume=vol_np, color=color, depth=depth, hit=hit,
@@ -114,4 +167,5 @@ def main():
 
 
 if __name__ == "__main__":
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
     main()

@@ -1,7 +1,7 @@
 """Multi-host (multi-controller) worker for the jax.distributed proof.
 
 Each process contributes 4 virtual CPU devices to a global 8-device mesh
-(2 processes x 4 — the DCN-spanning layout of BASELINE.md's "N>=2 hosts"
+(2 processes x 4 — the host-spanning layout of BASELINE.md's "N>=2 hosts"
 target). All processes build the identical scene, run ONE sharded
 brick-compact step over the global mesh, and process 0 writes the gathered
 outputs + the measured per-frame collective byte counts for the parent
@@ -51,13 +51,13 @@ def main():
     import numpy as np
     from jax.experimental import multihost_utils
 
-    from rgbd_recon_tpu.calib.sensors import build_synthetic_calibration
-    from rgbd_recon_tpu.core.config import PipelineConfig
-    from rgbd_recon_tpu.core.grid import BoundingBox
-    from rgbd_recon_tpu.dist import make_mesh, shard_pipeline_step
-    from rgbd_recon_tpu.ops.raymarch import ViewCamera
-    from rgbd_recon_tpu.recon import TsdfPipeline
-    from rgbd_recon_tpu.sensors.synthetic import (
+    from rgbd_recon.calib.sensors import build_synthetic_calibration
+    from rgbd_recon.core.config import PipelineConfig
+    from rgbd_recon.core.grid import BoundingBox
+    from rgbd_recon.dist import make_mesh, shard_pipeline_step
+    from rgbd_recon.ops.raymarch import ViewCamera
+    from rgbd_recon.recon import TsdfPipeline
+    from rgbd_recon.sensors.synthetic import (
         SyntheticScene,
         default_test_rig,
         render_rig_frames,

@@ -1,4 +1,4 @@
-"""Pose-BA sharp-recovery validation at reference scale on the TPU.
+"""Pose-BA sharp-recovery validation at reference scale on the GPU.
 
 Injects a known rotation+translation error into one sensor of a 4-sensor
 512x424 rig at 1 cm voxels, runs the leave-one-out Gauss-Newton refinement,
@@ -6,28 +6,29 @@ and reports parameter-space recovery — the resolution regime where the
 objective is identifiable (the CPU unit test runs the same check at a
 coarse scale where only the residual floor is observable)."""
 import dataclasses
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-from rgbd_recon_tpu.core.cache import enable_compile_cache
+from rgbd_recon.core.cache import enable_compile_cache
 
 enable_compile_cache()
 import jax.numpy as jnp
 import numpy as np
 
-from rgbd_recon_tpu.calib.sensors import build_synthetic_calibration
-from rgbd_recon_tpu.core.camera import RGBDSensor, SensorRig
-from rgbd_recon_tpu.core.config import PipelineConfig
-from rgbd_recon_tpu.core.grid import BoundingBox
-from rgbd_recon_tpu.recon import TsdfPipeline
-from rgbd_recon_tpu.refine import (
+from rgbd_recon.calib.sensors import build_synthetic_calibration
+from rgbd_recon.core.camera import RGBDSensor, SensorRig
+from rgbd_recon.core.config import PipelineConfig
+from rgbd_recon.core.grid import BoundingBox
+from rgbd_recon.recon import TsdfPipeline
+from rgbd_recon.refine import (
     leave_one_out_volumes, pose_residual_stats, refine_poses,
 )
-from rgbd_recon_tpu.refine.pose_ba import _rodrigues, apply_pose_corrections
-from rgbd_recon_tpu.sensors.synthetic import (
+from rgbd_recon.refine.pose_ba import _rodrigues, apply_pose_corrections
+from rgbd_recon.sensors.synthetic import (
     SyntheticScene, default_test_rig, render_rig_frames,
 )
 
@@ -79,9 +80,10 @@ def calib_error_mm(calib_cur):
 volume, maps, counts = pipe.fuse(frames)
 err0 = calib_error_mm(pipe.calib)
 print("calib error before (mm/sensor):", np.round(err0, 1), flush=True)
-print("refining (3 alternating rounds)...", flush=True)
+ROUNDS = 4
+print(f"refining ({ROUNDS} alternating rounds)...", flush=True)
 err_rounds = []
-# ONE call, four alternating refine->apply->refuse rounds at the NOMINAL
+# ONE call, ROUNDS alternating refine->apply->refuse rounds at the NOMINAL
 # band with 24 LM iterations each. Measured design points: the rotation
 # valley is shallow when the dominant object sits near the drift's
 # rotation axis — 8 iterations stall in an equal-cost wrong-axis
@@ -92,7 +94,7 @@ err_rounds = []
 # margin (with continuity for the sensor corrected last round) with a
 # mandatory residual-improvement check, so runaway estimates degrade to
 # no-correction instead of corrupting the rig.
-poses, hist = pipe.refine_sensor_poses(maps, counts, iters=24, rounds=4,
+poses, hist = pipe.refine_sensor_poses(maps, counts, iters=24, rounds=ROUNDS,
                                        frames=frames,
                                        band_schedule=(1.0,))
 err_rounds.append(calib_error_mm(pipe.calib))
@@ -111,7 +113,7 @@ lines = [
     f"rotation about y plus {[float(v) for v in np.round(np.array(DRIFT_T)*1000,1)]} mm "
     f"translation ({inj_mm:.1f} mm net). Recovery via",
     "leave-one-out consensus Gauss-Newton with soft observer-count",
-    "weighting (24 LM iterations per round; 4 alternating",
+    f"weighting (24 LM iterations per round; {ROUNDS} alternating",
     "refine->apply->refuse rounds at the nominal band;",
     "worst-sensor-only apply behind a noise-margin + continuity +",
     "mandatory residual-improvement gate).",
@@ -131,15 +133,15 @@ lines += [
     f"Sensor 1 recovered from {err0[1]:.1f} mm to {err[1]:.1f} mm mean",
     "lookup error; the undrifted sensors stay at their baseline (the",
     "gated worst-only apply never moves them). The apply gate's",
-    "mandatory residual-improvement check means runaway estimates (e.g.",
-    "drifts far beyond even the widened band) degrade to no-correction",
-    "instead of corrupting the rig. Round-5 changes that enabled this:",
+    "mandatory residual-improvement check rejects runaway estimates whose",
+    "residual does not improve; it does not catch every band-consistent",
+    "wrong correction. Round-5 changes that enabled this:",
     "soft per-voxel observer-count weighting of the leave-one-out",
     "residuals (contamination-aware consensus), the zero-correction",
     "prior projected onto near-null directions only (the isotropic",
     "prior halved weakly-witnessed rotations), and 24 LM iterations",
     "(8 stalled in an equal-cost wrong-axis sidelobe).",
-    "Run on " + str(jax.devices()[0]) + ".",
+    f"Run on {jax.devices()[0].device_kind} ({jax.devices()[0].platform}).",
 ]
 with open("pose_ba_validation.md", "w") as f:
     f.write("\n".join(lines) + "\n")

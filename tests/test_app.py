@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from rgbd_recon_tpu.calib.kinect_yml import parse_kinect_yml
+from rgbd_recon.calib.kinect_yml import parse_kinect_yml
 
 YML = """%YAML:1.0
 rgb_intrinsics: !!opencv-matrix
@@ -77,7 +77,7 @@ def test_parse_kinect_yml(tmp_path):
 def test_app_record_and_run(tmp_path):
     """Full CLI round trip at tiny scale: record .streams, then reconstruct
     from them (the reference's readfromfile workflow)."""
-    from rgbd_recon_tpu.app import main
+    from rgbd_recon.app import main
 
     rec = tmp_path / "rec"
     main([
@@ -107,14 +107,14 @@ def test_app_record_and_run(tmp_path):
 
 def test_app_invert(tmp_path):
     """CLI inverse-calibration baking on a baked cv_xyz file."""
-    from rgbd_recon_tpu.app import main
-    from rgbd_recon_tpu.calib.bake import bake_cv_xyz
-    from rgbd_recon_tpu.calib.volume_io import (
+    from rgbd_recon.app import main
+    from rgbd_recon.calib.bake import bake_cv_xyz
+    from rgbd_recon.calib.volume_io import (
         read_calibration_volume,
         write_calibration_volume,
     )
-    from rgbd_recon_tpu.core.grid import BoundingBox
-    from rgbd_recon_tpu.sensors.synthetic import default_test_rig
+    from rgbd_recon.core.grid import BoundingBox
+    from rgbd_recon.sensors.synthetic import default_test_rig
 
     bbox = BoundingBox(min=(-1.0, 0.0, -1.0), max=(1.0, 2.2, 1.0))
     rig = default_test_rig(num_sensors=1, bbox=bbox)
@@ -131,7 +131,7 @@ def test_app_invert(tmp_path):
 
 def test_app_run_stereo_checkpoint(tmp_path):
     """CLI: anaglyph stereo output + rotating checkpoints at tiny scale."""
-    from rgbd_recon_tpu.app import main
+    from rgbd_recon.app import main
 
     scene = tmp_path / "scene.ks"
     scene.write_text("kinect a.yml\nkinect b.yml\nbbx -1 0 -1 1 2.2 1\n")
@@ -149,15 +149,14 @@ def test_app_run_stereo_checkpoint(tmp_path):
         "--stereo", "anaglyph",
         "--checkpoint-dir", str(ck), "--checkpoint-every", "1",
     ])
-    import numpy as np
-    from PIL import Image
+    from rgbd_recon.viz import load_image
 
     renders = sorted(out.glob("frame_*.png"))
     assert len(renders) == 2
-    img = np.asarray(Image.open(renders[0]))
+    img = load_image(renders[0])
     assert img.shape == (40, 48, 3)  # anaglyph composes into one frame
 
-    from rgbd_recon_tpu.io import CheckpointManager
+    from rgbd_recon.io import CheckpointManager
 
     latest = CheckpointManager(ck).latest()
     assert latest is not None and latest.frame_index == 2
@@ -170,7 +169,7 @@ def test_preview_server_streams_frames():
 
     import numpy as np
 
-    from rgbd_recon_tpu.viz.preview import PreviewServer
+    from rgbd_recon.viz.preview import PreviewServer
 
     srv = PreviewServer(port=0)  # ephemeral port
     try:
@@ -195,3 +194,39 @@ def test_preview_server_streams_frames():
         req.close()
     finally:
         srv.close()
+
+
+@pytest.mark.parametrize("kind", ["float_rgb", "uint8_gray"])
+def test_png_writer_round_trip(tmp_path, kind):
+    """viz.save_image writes a valid 8-bit RGB PNG with the standard
+    library; load_image reads back exactly the quantized pixels."""
+    import struct
+    import zlib
+
+    from rgbd_recon.viz import load_image, save_image
+
+    rng = np.random.default_rng(7)
+    if kind == "float_rgb":
+        img = rng.random((9, 13, 3)).astype(np.float32)
+        img[0, 0] = (-0.5, 1.5, 1.0)  # clipped to [0, 1]
+        want = (np.clip(img, 0.0, 1.0) * 255).astype(np.uint8)
+    else:
+        img = rng.integers(0, 256, (6, 11), dtype=np.uint8)
+        want = np.stack([img] * 3, axis=-1)
+    p = tmp_path / "x.png"
+    save_image(p, img)
+    data = p.read_bytes()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    # every chunk's CRC is valid and IHDR says 8-bit RGB
+    pos, tags = 8, []
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        body = data[pos + 4:pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        assert zlib.crc32(body) & 0xFFFFFFFF == crc
+        tags.append(body[:4])
+        pos += 12 + n
+    assert tags[0] == b"IHDR" and tags[-1] == b"IEND"
+    h, w = want.shape[:2]
+    assert struct.unpack(">IIBB", data[16:26]) == (w, h, 8, 2)
+    np.testing.assert_array_equal(load_image(p), want)

@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from rgbd_recon_tpu.core.config import PipelineConfig, format_conf, parse_conf, parse_ks
-from rgbd_recon_tpu.core.grid import BoundingBox, BrickGrid, VolumeGrid
-from rgbd_recon_tpu.sensors.synthetic import (
+from rgbd_recon.core.config import PipelineConfig, format_conf, parse_conf, parse_ks
+from rgbd_recon.core.grid import BoundingBox, BrickGrid, VolumeGrid
+from rgbd_recon.sensors.synthetic import (
     SyntheticScene,
     default_test_rig,
     render_rig_frames,
@@ -110,3 +110,114 @@ def test_synthetic_render_depth_accuracy():
     world = cam.unproject(uv, d[jj, ii])
     sd = scene.sdf(world)
     assert np.abs(sd).max() < 5e-3
+
+
+def test_pytree_dataclass_leaves_round_trip():
+    """core.pytree.dataclass: array fields are leaves that flatten and
+    unflatten unchanged; replace() returns a new frozen instance."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from rgbd_recon.core import pytree
+
+    @pytree.dataclass
+    class Pair:
+        a: jnp.ndarray
+        b: jnp.ndarray = None
+
+    p = Pair(a=jnp.arange(3.0), b=jnp.ones((2, 2)))
+    leaves, treedef = jax.tree_util.tree_flatten(p)
+    assert len(leaves) == 2
+    q = jax.tree_util.tree_unflatten(treedef, leaves)
+    np.testing.assert_array_equal(np.asarray(q.a), np.asarray(p.a))
+    np.testing.assert_array_equal(np.asarray(q.b), np.asarray(p.b))
+    doubled = jax.tree_util.tree_map(lambda x: 2 * x, p)
+    np.testing.assert_array_equal(np.asarray(doubled.b), 2.0)
+    r = p.replace(b=None)
+    assert r.b is None and p.b is not None
+    assert len(jax.tree_util.tree_leaves(r)) == 1
+    try:
+        p.a = jnp.zeros(3)
+    except dataclasses.FrozenInstanceError:
+        pass
+    else:
+        raise AssertionError("pytree dataclasses must be frozen")
+
+
+def test_pytree_dataclass_static_fields_stay_static():
+    """static_field values are treedef metadata: a jitted function sees
+    them as Python values, and a new value retraces instead of being
+    traced."""
+    import jax
+    import jax.numpy as jnp
+
+    from rgbd_recon.core import pytree
+
+    @pytree.dataclass
+    class Scaled:
+        x: jnp.ndarray
+        scale: int = pytree.static_field(default=2)
+
+    traces = []
+
+    @jax.jit
+    def f(s):
+        traces.append(s.scale)
+        assert isinstance(s.scale, int)  # not a tracer
+        return s.x * s.scale
+
+    assert len(jax.tree_util.tree_leaves(Scaled(jnp.ones(2), 3))) == 1
+    np.testing.assert_allclose(np.asarray(f(Scaled(jnp.ones(2), 3))), 3.0)
+    f(Scaled(jnp.zeros(2), 3))
+    assert traces == [3]
+    np.testing.assert_allclose(np.asarray(f(Scaled(jnp.ones(2), 5))), 5.0)
+    assert traces == [3, 5]
+
+
+def _with_cache_config(fn):
+    import jax
+
+    keep = jax.config.jax_compilation_cache_dir
+    try:
+        return fn()
+    finally:
+        jax.config.update("jax_compilation_cache_dir", keep)
+
+
+def test_compile_cache_honors_env_var(tmp_path, monkeypatch):
+    import jax
+
+    from rgbd_recon.core.cache import enable_compile_cache
+
+    target = tmp_path / "xla_cache"
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(target))
+
+    def run():
+        used = enable_compile_cache()
+        assert used == str(target)
+        assert jax.config.jax_compilation_cache_dir == str(target)
+        assert target.is_dir()
+
+    _with_cache_config(run)
+
+
+def test_compile_cache_defaults_inside_checkout(monkeypatch):
+    import os
+
+    import jax
+
+    import rgbd_recon
+    from rgbd_recon.core.cache import enable_compile_cache
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    checkout = os.path.dirname(os.path.dirname(
+        os.path.abspath(rgbd_recon.__file__)))
+
+    def run():
+        used = enable_compile_cache()
+        assert used == os.path.join(checkout, ".jax_cache")
+        assert jax.config.jax_compilation_cache_dir == used
+
+    _with_cache_config(run)

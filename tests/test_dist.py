@@ -6,14 +6,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rgbd_recon_tpu.calib.sensors import build_synthetic_calibration
-from rgbd_recon_tpu.core.config import PipelineConfig
-from rgbd_recon_tpu.core.grid import BoundingBox
-from rgbd_recon_tpu.dist import halo_exchange_z, make_mesh, shard_pipeline_step
-from rgbd_recon_tpu.dist.halo import crop_halo_z
-from rgbd_recon_tpu.ops.raymarch import ViewCamera
-from rgbd_recon_tpu.recon import TsdfPipeline
-from rgbd_recon_tpu.sensors.synthetic import (
+from rgbd_recon.calib.sensors import build_synthetic_calibration
+from rgbd_recon.core.config import PipelineConfig
+from rgbd_recon.core.grid import BoundingBox
+from rgbd_recon.dist import halo_exchange_z, make_mesh, shard_pipeline_step
+from rgbd_recon.dist.halo import crop_halo_z
+from rgbd_recon.ops.raymarch import ViewCamera
+from rgbd_recon.recon import TsdfPipeline
+from rgbd_recon.sensors.synthetic import (
     SyntheticScene,
     default_test_rig,
     render_rig_frames,
@@ -104,7 +104,7 @@ def test_sharded_volume_actually_sharded(small_setup):
 def test_refine_poses_psum_matches_single(small_setup):
     """The psum-reduced normal equations under the mesh produce the same
     pose corrections as the single-device solver."""
-    from rgbd_recon_tpu.refine import pose_ba
+    from rgbd_recon.refine import pose_ba
 
     pipe, frames = small_setup
     volume, maps, counts = pipe.fuse(frames)
@@ -128,7 +128,7 @@ def test_sensor_sharded_preprocess_matches_replicated():
     """SURVEY §2.10 per-host sensor shards: the preprocess chain sharded
     over the sensor axis must reproduce the replicated chain (maps AND
     brick counters) exactly."""
-    from rgbd_recon_tpu.dist import shard_preprocess
+    from rgbd_recon.dist import shard_preprocess
 
     rig = default_test_rig(
         num_sensors=8, depth_size=(32, 24), color_size=(40, 32), bbox=BBOX

@@ -1,6 +1,6 @@
 """Multi-host (multi-controller) distribution proof: two PROCESSES, each
 with 4 virtual CPU devices, run the brick-compact sharded step over one
-global 2x4-process-spanning mesh via jax.distributed — the DCN-crossing
+global 2x4-process-spanning mesh via jax.distributed — the host-crossing
 layout of BASELINE.md's "N>=2 hosts" target — and must reproduce the
 single-process result.
 
@@ -8,7 +8,7 @@ The workers live in scripts/multihost_worker.py (also runnable by hand);
 this test launches them, then computes the single-process reference with
 the SAME scene and compares. The reference comms inventory this replaces
 is the reference app's single-process ZMQ fan-in
-(/root/reference/framework/NetKinectArray.cpp:484-544); here the fan-in
+(framework/NetKinectArray.cpp:484-544); here the fan-in
 becomes jax collectives over the process-spanning mesh.
 """
 
@@ -79,12 +79,12 @@ def test_two_process_sharded_step_matches_single(tmp_path):
 
     # single-process reference with the SAME scene (this test session runs
     # on the 8-virtual-device CPU backend via conftest)
-    from rgbd_recon_tpu.calib.sensors import build_synthetic_calibration
-    from rgbd_recon_tpu.core.config import PipelineConfig
-    from rgbd_recon_tpu.core.grid import BoundingBox
-    from rgbd_recon_tpu.ops.raymarch import ViewCamera
-    from rgbd_recon_tpu.recon import TsdfPipeline
-    from rgbd_recon_tpu.sensors.synthetic import (
+    from rgbd_recon.calib.sensors import build_synthetic_calibration
+    from rgbd_recon.core.config import PipelineConfig
+    from rgbd_recon.core.grid import BoundingBox
+    from rgbd_recon.ops.raymarch import ViewCamera
+    from rgbd_recon.recon import TsdfPipeline
+    from rgbd_recon.sensors.synthetic import (
         SyntheticScene,
         default_test_rig,
         render_rig_frames,

@@ -4,12 +4,12 @@ checkpointing, DXT codecs, and orbit navigation."""
 import numpy as np
 import pytest
 
-from rgbd_recon_tpu.calib.sensors import build_synthetic_calibration
-from rgbd_recon_tpu.core.config import PipelineConfig
-from rgbd_recon_tpu.core.grid import BoundingBox
-from rgbd_recon_tpu.ops.raymarch import ViewCamera
-from rgbd_recon_tpu.recon import CalibVisPipeline, MvtPipeline, TsdfPipeline
-from rgbd_recon_tpu.sensors.synthetic import (
+from rgbd_recon.calib.sensors import build_synthetic_calibration
+from rgbd_recon.core.config import PipelineConfig
+from rgbd_recon.core.grid import BoundingBox
+from rgbd_recon.ops.raymarch import ViewCamera
+from rgbd_recon.recon import CalibVisPipeline, MvtPipeline, TsdfPipeline
+from rgbd_recon.sensors.synthetic import (
     SyntheticScene,
     default_test_rig,
     render_rig_frames,
@@ -40,7 +40,7 @@ def setup():
 # ---------------------------------------------------------------------------
 
 def test_stereo_cameras_separated(setup):
-    from rgbd_recon_tpu.viz import StereoCamera
+    from rgbd_recon.viz import StereoCamera
 
     *_, cam = setup
     st = StereoCamera(cyclops=cam, eye_separation=0.065)
@@ -51,7 +51,7 @@ def test_stereo_cameras_separated(setup):
 
 
 def test_anaglyph_composition_channels(setup):
-    from rgbd_recon_tpu.viz import StereoCamera, make_stereo_renderer
+    from rgbd_recon.viz import StereoCamera, make_stereo_renderer
 
     calib, cfg, pipe, volume, maps, counts, cam = setup
     st = StereoCamera(cyclops=cam)
@@ -65,7 +65,7 @@ def test_anaglyph_composition_channels(setup):
 
 
 def test_side_by_side_width(setup):
-    from rgbd_recon_tpu.viz import StereoCamera, make_stereo_renderer
+    from rgbd_recon.viz import StereoCamera, make_stereo_renderer
 
     calib, cfg, pipe, volume, maps, counts, cam = setup
     st = StereoCamera(cyclops=cam)
@@ -112,7 +112,7 @@ def test_mvt_renderer(setup):
 # ---------------------------------------------------------------------------
 
 def test_checkpoint_roundtrip(tmp_path, setup):
-    from rgbd_recon_tpu.io import CheckpointManager, ReconCheckpoint, config_to_json
+    from rgbd_recon.io import CheckpointManager, ReconCheckpoint, config_to_json
 
     calib, cfg, pipe, volume, maps, counts, cam = setup
     ck = ReconCheckpoint(
@@ -133,7 +133,7 @@ def test_checkpoint_roundtrip(tmp_path, setup):
 
 
 def test_checkpoint_rotation(tmp_path):
-    from rgbd_recon_tpu.io import CheckpointManager, ReconCheckpoint
+    from rgbd_recon.io import CheckpointManager, ReconCheckpoint
 
     mgr = CheckpointManager(tmp_path, keep=2)
     for i in range(4):
@@ -145,8 +145,8 @@ def test_checkpoint_rotation(tmp_path):
 
 
 def test_volume_binary_format(tmp_path):
-    from rgbd_recon_tpu.calib.volume_io import read_calibration_volume
-    from rgbd_recon_tpu.io import save_volume_binary
+    from rgbd_recon.calib.volume_io import read_calibration_volume
+    from rgbd_recon.io import save_volume_binary
 
     vol = np.random.default_rng(0).normal(size=(4, 5, 6)).astype(np.float32)
     p = save_volume_binary(tmp_path / "v.bin", vol, limits=(0.5, 4.5))
@@ -161,7 +161,7 @@ def test_volume_binary_format(tmp_path):
 # ---------------------------------------------------------------------------
 
 def test_dxt1_roundtrip_flat_blocks():
-    from rgbd_recon_tpu.io import dxt
+    from rgbd_recon.io import dxt
 
     img = np.zeros((8, 8, 3), np.uint8)
     img[:4, :4] = [255, 0, 0]
@@ -176,7 +176,7 @@ def test_dxt1_roundtrip_flat_blocks():
 
 
 def test_dxt1_gradient_quality():
-    from rgbd_recon_tpu.io import dxt
+    from rgbd_recon.io import dxt
 
     rng = np.random.default_rng(3)
     img = (rng.uniform(0, 255, (16, 16, 3)) * 0.3
@@ -187,7 +187,7 @@ def test_dxt1_gradient_quality():
 
 
 def test_dxt5_alpha():
-    from rgbd_recon_tpu.io import dxt
+    from rgbd_recon.io import dxt
 
     # one opaque DXT5 block: alpha palette a0=255, a1=255 -> all 255
     color_block = dxt.encode_dxt1(np.full((4, 4, 3), 200, np.uint8))
@@ -199,7 +199,7 @@ def test_dxt5_alpha():
 
 
 def test_depth_compression_roundtrip():
-    from rgbd_recon_tpu.io import dxt
+    from rgbd_recon.io import dxt
 
     near, far = 0.5, 4.5
     d = np.linspace(0.6, 4.4, 256).astype(np.float32)
@@ -212,7 +212,7 @@ def test_depth_compression_roundtrip():
 
 
 def test_depth_compression_invalid_is_zero():
-    from rgbd_recon_tpu.io import dxt
+    from rgbd_recon.io import dxt
 
     u8 = dxt.compress_depth(np.array([0.0, 0.2, 10.0], np.float32), 0.5, 4.5)
     assert (dxt.uncompress_depth(u8, 0.5, 4.5) == 0.0).all()
@@ -223,7 +223,7 @@ def test_depth_compression_invalid_is_zero():
 # ---------------------------------------------------------------------------
 
 def test_orbit_navigator_distance_and_target():
-    from rgbd_recon_tpu.viz import OrbitNavigator
+    from rgbd_recon.viz import OrbitNavigator
 
     nav = OrbitNavigator(poi=(0.0, 1.0, 0.0), distance=3.0)
     cam = nav.camera()
@@ -237,7 +237,7 @@ def test_orbit_navigator_distance_and_target():
 
 
 def test_orbit_navigator_zoom_reset():
-    from rgbd_recon_tpu.viz import OrbitNavigator
+    from rgbd_recon.viz import OrbitNavigator
 
     nav = OrbitNavigator(distance=2.0)
     nav.zoom(0.5)

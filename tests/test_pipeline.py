@@ -5,12 +5,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rgbd_recon_tpu.calib.sensors import build_synthetic_calibration
-from rgbd_recon_tpu.core.config import PipelineConfig
-from rgbd_recon_tpu.core.grid import BoundingBox
-from rgbd_recon_tpu.ops.raymarch import ViewCamera
-from rgbd_recon_tpu.recon import TsdfPipeline
-from rgbd_recon_tpu.sensors.synthetic import (
+from rgbd_recon.calib.sensors import build_synthetic_calibration
+from rgbd_recon.core.config import PipelineConfig
+from rgbd_recon.core.grid import BoundingBox
+from rgbd_recon.ops.raymarch import ViewCamera
+from rgbd_recon.recon import TsdfPipeline
+from rgbd_recon.sensors.synthetic import (
     SyntheticScene,
     default_test_rig,
     render_rig_frames,
@@ -72,7 +72,7 @@ def test_surface_accuracy(setup):
     _, _, scene, _, pipe, volume, maps, counts = setup
     cam = ViewCamera(width=64, height=56, eye=(0.0, 1.2, 2.5), target=(0.0, 1.1, 0.0))
     # march directly (bypasses shading) for geometric check
-    from rgbd_recon_tpu.ops import raymarch as rm
+    from rgbd_recon.ops import raymarch as rm
 
     eye_vol = jnp.asarray(BBOX.normalize(np.asarray(cam.eye, np.float32)))
     dirs = jnp.asarray(cam.ray_directions_world() / BBOX.size)

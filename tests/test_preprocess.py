@@ -2,19 +2,20 @@
 behavioral invariants from the reference shaders."""
 
 import jax.numpy as jnp
+import pytest
 import numpy as np
 
-from rgbd_recon_tpu.calib.bake import bake_cv_uv, bake_cv_xyz
-from rgbd_recon_tpu.core.grid import BoundingBox
-from rgbd_recon_tpu.ops.color import rgb_to_lab
-from rgbd_recon_tpu.ops.preprocess import (
+from rgbd_recon.calib.bake import bake_cv_uv, bake_cv_xyz
+from rgbd_recon.core.grid import BoundingBox
+from rgbd_recon.ops.color import rgb_to_lab
+from rgbd_recon.ops.preprocess import (
     bilateral_lab,
     boundary,
     morph_dilate,
     normals,
     quality,
 )
-from rgbd_recon_tpu.sensors.synthetic import default_test_rig
+from rgbd_recon.sensors.synthetic import default_test_rig
 
 BBOX = BoundingBox(min=(-1.0, 0.0, -1.0), max=(1.0, 2.2, 1.0))
 
@@ -228,13 +229,13 @@ def test_pixel_ray_model_matches_volume_lookups():
     preprocess chain."""
     import jax
 
-    from rgbd_recon_tpu.calib.sensors import (
+    from rgbd_recon.calib.sensors import (
         build_synthetic_calibration,
         derive_pixel_models,
     )
-    from rgbd_recon_tpu.core.grid import BoundingBox
-    from rgbd_recon_tpu.ops.preprocess import preprocess_frames
-    from rgbd_recon_tpu.sensors.synthetic import (
+    from rgbd_recon.core.grid import BoundingBox
+    from rgbd_recon.ops.preprocess import preprocess_frames
+    from rgbd_recon.sensors.synthetic import (
         SyntheticScene,
         default_test_rig,
         render_rig_frames,
@@ -284,15 +285,19 @@ def test_pixel_ray_model_matches_volume_lookups():
 
 
 def test_pallas_stencils_parity_interpret():
-    """The Pallas bilateral/quality kernels (ops/stencil_pallas.py) must
-    reproduce the jnp reference fold tap-for-tap. Runs the kernels in
-    interpret mode on the CPU backend (use_pallas=True off-TPU); the same
-    dispatch path runs them compiled on TPU."""
+    """The Triton-route Pallas bilateral/quality kernels
+    (ops/stencil_triton.py), run in the Pallas interpreter on the CPU, must
+    reproduce the jnp folds tap-for-tap on a preprocessed 2-sensor frame."""
     import jax
 
-    from rgbd_recon_tpu.calib import build_synthetic_calibration
-    from rgbd_recon_tpu.ops.preprocess import preprocess_frames
-    from rgbd_recon_tpu.sensors import SyntheticScene, render_rig_frames
+    from rgbd_recon.calib import build_synthetic_calibration
+    from rgbd_recon.ops import stencil_triton
+    from rgbd_recon.ops.preprocess import (
+        bilateral_sums,
+        preprocess_frames,
+        quality_sums,
+    )
+    from rgbd_recon.sensors import SyntheticScene, render_rig_frames
 
     bbox = BBOX
     rig = default_test_rig(num_sensors=2, depth_size=(48, 40),
@@ -302,22 +307,119 @@ def test_pallas_stencils_parity_interpret():
     frames = render_rig_frames(
         SyntheticScene(spheres=[((0.0, 1.1, 0.0), 0.55)]), rig
     )
-    kw = dict(
-        cv_xyz=calib.cv_xyz, cv_uv=calib.cv_uv, bbox_min=calib.bbox_min,
-        bbox_max=calib.bbox_max, depth_limits=calib.depth_limits,
-        camera_positions=calib.camera_positions,
+    maps = preprocess_frames(
+        frames.depths, frames.colors, calib.cv_xyz, calib.cv_uv,
+        calib.bbox_min, calib.bbox_max, calib.depth_limits,
+        calib.camera_positions,
     )
-    m_ref = preprocess_frames(frames.depths, frames.colors, **kw,
-                              use_pallas=False)
-    m_pal = preprocess_frames(frames.depths, frames.colors, **kw,
-                              use_pallas=True)
+    lim = calib.depth_limits
+    d_m, d_n = maps.raw_depth, maps.depth[..., 0]
+    got_b = stencil_triton.bilateral13(d_m, lim, interpret=True)
+    want_b = jax.vmap(bilateral_sums)(d_m, lim[:, 0], lim[:, 1])
+    got_q = stencil_triton.quality13(d_n, interpret=True)
+    want_q = jax.vmap(quality_sums)(d_n)
+    for g, w in zip(got_b + got_q, want_b + want_q):
+        np.testing.assert_allclose(np.asarray(g), np.asarray(w),
+                                   rtol=1e-6, atol=1e-5)
 
-    np.testing.assert_allclose(
-        np.asarray(m_pal.depth), np.asarray(m_ref.depth), atol=1e-5
+
+@pytest.mark.parametrize("platform", ["cpu", "cuda"])
+def test_window_sums_pick_kernel_by_lowering_platform(platform):
+    """preprocess_frames lowers the 13x13 window sums to the Triton kernels
+    for CUDA and to the jnp fold elsewhere — decided at lowering, so a CPU
+    program never contains a Triton call (and never runs it interpreted)."""
+    import jax
+
+    from rgbd_recon.ops.preprocess import preprocess_frames
+
+    N, H, W = 2, 40, 48
+    f32 = jax.numpy.float32
+    args = (
+        jax.ShapeDtypeStruct((N, H, W), f32),
+        jax.ShapeDtypeStruct((N, 48, 64, 3), f32),
+        jax.ShapeDtypeStruct((N, 8, 12, 8, 3), f32),
+        jax.ShapeDtypeStruct((N, 8, 12, 8, 2), f32),
+        jax.ShapeDtypeStruct((3,), f32),
+        jax.ShapeDtypeStruct((3,), f32),
+        jax.ShapeDtypeStruct((N, 2), f32),
+        jax.ShapeDtypeStruct((N, 3), f32),
     )
-    np.testing.assert_allclose(
-        np.asarray(m_pal.silhouette), np.asarray(m_ref.silhouette), atol=1e-6
-    )
-    np.testing.assert_allclose(
-        np.asarray(m_pal.quality), np.asarray(m_ref.quality), atol=1e-5
-    )
+    text = jax.jit(preprocess_frames).trace(*args).lower(
+        lowering_platforms=(platform,)).as_text()
+    n_triton = text.count("triton")
+    if platform == "cuda":
+        assert n_triton >= 2, "bilateral + quality kernels expected"
+    else:
+        assert n_triton == 0
+
+
+def _window(a, y, x, ks=6):
+    """The (2ks+1)^2 clamp-to-edge neighbourhood of pixel (y, x) and the
+    (dy, dx) offsets of its taps."""
+    H, W = a.shape
+    dy, dx = np.meshgrid(np.arange(-ks, ks + 1), np.arange(-ks, ks + 1),
+                         indexing="ij")
+    yy = np.clip(y + dy, 0, H - 1)
+    xx = np.clip(x + dx, 0, W - 1)
+    return a[yy, xx], dy.astype(np.float32), dx.astype(np.float32)
+
+
+def _np_bilateral_sums(d, near, far, ks=6):
+    out = np.zeros((3,) + d.shape, np.float64)
+    for y in range(d.shape[0]):
+        for x in range(d.shape[1]):
+            s, dy, dx = _window(d, y, x, ks)
+            c = d[y, x]
+            drm = 0.35 * c / 4.5
+            rng_ = np.abs(s - c)
+            border = (s < near) | (s > far) | (rng_ > drm)
+            gr = 1.0 - np.minimum(rng_, drm) / max(drm, 1e-20)
+            ws = np.where(border, 0.0, (1.0 - np.sqrt(dx**2 + dy**2) / ks) * gr)
+            out[:, y, x] = (np.sum(ws * s), np.sum(ws),
+                            np.sum(np.where(border, 0.0, gr)))
+    return out
+
+
+def _np_quality_sums(d, ks=6):
+    out = np.zeros((2,) + d.shape, np.float64)
+    for y in range(d.shape[0]):
+        for x in range(d.shape[1]):
+            s, _, _ = _window(d, y, x, ks)
+            c = d[y, x]
+            drm = 0.35 * c
+            rng_ = np.abs(s - c)
+            border = (s <= 0.0) | (s >= 1.0) | (rng_ > drm)
+            gr = 1.0 - np.minimum(rng_, drm) / max(drm, 1e-20)
+            out[:, y, x] = (np.sum(border), np.sum(np.where(border, 0.0, gr)))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["bilateral", "quality"])
+def test_stencil_fold_matches_numpy_loop(kind):
+    """The unrolled 13x13 jnp folds (bilateral_sums, quality_sums), vmapped
+    over 2 sensors at 48x40, against a per-pixel NumPy loop over
+    clamp-to-edge windows (pre_depth.fs:85-127, pre_quality.fs:65-119)."""
+    import jax
+
+    from rgbd_recon.ops.preprocess import bilateral_sums, quality_sums
+
+    rng = np.random.default_rng(11)
+    N, H, W = 2, 40, 48
+    if kind == "bilateral":
+        d = rng.uniform(0.3, 5.0, (N, H, W)).astype(np.float32)
+        d[:, 10:20, 10:30] = rng.uniform(1.9, 2.1, (N, 10, 20))  # smooth patch
+        d[rng.random((N, H, W)) < 0.1] = 0.0                     # holes
+        near = np.array([0.5, 0.6], np.float32)
+        far = np.array([4.5, 4.0], np.float32)
+        got = jax.jit(jax.vmap(bilateral_sums))(d, near, far)
+        want = [_np_bilateral_sums(d[i], near[i], far[i]) for i in range(N)]
+    else:
+        d = rng.uniform(0.05, 0.95, (N, H, W)).astype(np.float32)
+        d[:, 5:25, 5:40] = rng.uniform(0.45, 0.5, (N, 20, 35))
+        d[rng.random((N, H, W)) < 0.1] = -1.0                    # invalidated
+        d[rng.random((N, H, W)) < 0.1] = 0.0                     # culled
+        got = jax.jit(jax.vmap(quality_sums))(d)
+        want = [_np_quality_sums(d[i]) for i in range(N)]
+    want = np.stack(want, axis=1)                                # (k, N, H, W)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(np.asarray(g), w, rtol=1e-5, atol=1e-4)

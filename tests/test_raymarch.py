@@ -2,11 +2,12 @@
 space skipping, shading."""
 
 import jax.numpy as jnp
+import pytest
 import numpy as np
 
-from rgbd_recon_tpu.core.grid import BoundingBox, VolumeGrid
-from rgbd_recon_tpu.ops import raymarch
-from rgbd_recon_tpu.ops.holefill import fill_colors
+from rgbd_recon.core.grid import BoundingBox, VolumeGrid
+from rgbd_recon.ops import raymarch
+from rgbd_recon.ops.holefill import fill_colors
 
 BBOX = BoundingBox(min=(-1.0, 0.0, -1.0), max=(1.0, 2.2, 1.0))
 
@@ -165,7 +166,7 @@ def test_holefill_respects_far_side_rule():
     depth[0, 0] = 0.2
     rgba[0, 1] = [0.0, 0.0, 1.0, 1.0]
     depth[0, 1] = 0.8
-    from rgbd_recon_tpu.ops.holefill import pull
+    from rgbd_recon.ops.holefill import pull
 
     c1, d1 = pull(jnp.asarray(rgba), jnp.asarray(depth))
     c1, d1 = np.asarray(c1), np.asarray(d1)
@@ -179,10 +180,10 @@ def test_alternative_blend_modes():
     finite colors at hits; best_two must only mix two sensors' colors."""
     import dataclasses
 
-    from rgbd_recon_tpu.calib import build_synthetic_calibration
-    from rgbd_recon_tpu.core import PipelineConfig
-    from rgbd_recon_tpu.recon import TsdfPipeline
-    from rgbd_recon_tpu.sensors import (
+    from rgbd_recon.calib import build_synthetic_calibration
+    from rgbd_recon.core import PipelineConfig
+    from rgbd_recon.recon import TsdfPipeline
+    from rgbd_recon.sensors import (
         SyntheticScene, default_test_rig, render_rig_frames,
     )
 
@@ -220,10 +221,10 @@ def test_parity_mode_matches_fast_defaults():
     documented parity claim as a tested invariant (round-2 verdict #10)."""
     import dataclasses
 
-    from rgbd_recon_tpu.calib import build_synthetic_calibration
-    from rgbd_recon_tpu.core import PipelineConfig
-    from rgbd_recon_tpu.recon import TsdfPipeline
-    from rgbd_recon_tpu.sensors import (
+    from rgbd_recon.calib import build_synthetic_calibration
+    from rgbd_recon.core import PipelineConfig
+    from rgbd_recon.recon import TsdfPipeline
+    from rgbd_recon.sensors import (
         SyntheticScene, default_test_rig, render_rig_frames,
     )
 
@@ -280,11 +281,11 @@ def test_parity_mode_matches_fast_defaults():
 
 def test_half_pair_layout_matches_full():
     """half=True PackedVolume must sample identically to half=False
-    (nearest AND trilinear) — the fast march table layout (ADVICE r4)."""
+    (nearest AND trilinear) — the fast march table layout."""
     import jax
     import jax.numpy as jnp
 
-    from rgbd_recon_tpu.ops.raymarch import PackedVolume
+    from rgbd_recon.ops.raymarch import PackedVolume
 
     key = jax.random.PRNGKey(3)
     vol = jax.random.normal(key, (12, 10, 16), jnp.float32)
@@ -303,11 +304,11 @@ def test_half_pair_layout_matches_full():
 def test_oct_volume_matches_trilinear_and_gradient():
     """OctVolume.sample_p == GL trilinear over covered bricks (fill
     elsewhere); gradient_p == analytic trilinear-cell slope, checked
-    against finite differences of the trilinear field (ADVICE r4)."""
+    against finite differences of the trilinear field."""
     import jax
     import jax.numpy as jnp
 
-    from rgbd_recon_tpu.ops.raymarch import (
+    from rgbd_recon.ops.raymarch import (
         PackedVolume,
         build_oct_bricks,
     )
@@ -376,7 +377,7 @@ def test_widened_refine_recovers_trilinear_crossing():
     closed form; the fed-in bracket is deliberately shifted."""
     import jax.numpy as jnp
 
-    from rgbd_recon_tpu.ops.raymarch import build_oct_bricks
+    from rgbd_recon.ops.raymarch import build_oct_bricks
 
     v = 4
     Z, Y, X = 16, 8, 8
@@ -406,7 +407,7 @@ def test_widened_refine_recovers_trilinear_crossing():
     hit = jnp.ones((R,), bool)
     hit_pos = jnp.stack([px, py, lo_t], axis=-1)
 
-    from rgbd_recon_tpu.ops import raymarch
+    from rgbd_recon.ops import raymarch
 
     hp = raymarch.oct_refine_crossing(
         oct, pos0, dn, lo_t, hi_t, hit, hit_pos, limit,
@@ -423,3 +424,102 @@ def test_widened_refine_recovers_trilinear_crossing():
         oct, pos0, dn, lo_t, hi_t, hit, hit_pos, limit, widen_steps=0.0,
     )
     np.testing.assert_array_equal(np.asarray(hp0), np.asarray(hit_pos))
+
+
+def test_fill_colors_planar_matches_numpy_reference():
+    """The planar pull-push fill (the render's form) against the
+    independent NumPy fill of tests/golden_np.py on a random image with
+    scattered and one large hole; both pyramids stay in f32, so the
+    selection/interpolation matmuls must not lose precision."""
+    import os
+    import sys
+
+    import jax
+
+    from rgbd_recon.ops.holefill import fill_colors_planar
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import golden_np
+
+    H, W = 40, 72
+    rng = np.random.default_rng(3)
+    valid = rng.random((H, W)) < 0.5
+    valid[10:25, 20:50] = False
+    rgba = rng.random((H, W, 4)).astype(np.float32)
+    rgba[..., 3] = 1.0
+    rgba[~valid] = 0.0
+    depth = np.where(valid, rng.uniform(0.2, 0.9, (H, W)), 1.0)
+    depth = depth.astype(np.float32)
+    planes, _ = jax.jit(lambda p, d: fill_colors_planar(p, d, 5))(
+        [jnp.asarray(rgba[..., i]) for i in range(4)], jnp.asarray(depth))
+    got = np.stack([np.asarray(p) for p in planes], axis=-1)
+    want, _ = golden_np.fill_colors(rgba, depth, 5)
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+def _np_chebyshev(mask):
+    """Brute-force Chebyshev (L-inf) distance to the nearest True cell;
+    inf when there is none. Cells outside the array are never True."""
+    grid = np.indices(mask.shape).reshape(mask.ndim, -1).T
+    pts = np.argwhere(mask)
+    dist = np.full(len(grid), np.inf)
+    for i in range(0, len(pts), 256):
+        d = np.abs(grid[:, None, :] - pts[None, i:i + 256]).max(-1).min(1)
+        dist = np.minimum(dist, d)
+    return dist.reshape(mask.shape)
+
+
+@pytest.mark.parametrize("scene", ["sphere", "corner_voxel"])
+def test_bake_matches_numpy_reference(scene):
+    """The single-device march-volume bake (1-voxel dilation -> surface
+    bricks, brick and voxel Chebyshev clearance, sentinel encode, half-pair
+    pack) against a brute-force NumPy distance transform on a
+    brick-aligned 20^3 volume with 5-voxel bricks."""
+    import jax
+
+    from rgbd_recon.calib.sensors import build_synthetic_calibration
+    from rgbd_recon.core.config import PipelineConfig
+    from rgbd_recon.recon import TsdfPipeline
+    from rgbd_recon.sensors.synthetic import default_test_rig
+
+    bbox = BoundingBox(min=(-1.0, 0.0, -1.0), max=(1.0, 2.0, 1.0))
+    rig = default_test_rig(num_sensors=1, depth_size=(16, 12),
+                           color_size=(16, 12), bbox=bbox)
+    calib = build_synthetic_calibration(rig, bbox, cv_res=(8, 12, 8),
+                                        inv_res=(20, 20, 20))
+    cfg = PipelineConfig(voxel_size=0.1, brick_size=0.5, tsdf_limit=0.05,
+                         march_dtype="float32")
+    pipe = TsdfPipeline(calib, cfg, bbox)
+    cam = raymarch.ViewCamera(width=32, height=24, eye=(0.0, 1.0, 2.6),
+                              target=(0.0, 1.0, 0.0))
+    render_fn, _ = pipe.make_render_fn(cam)
+    limit = cfg.tsdf_limit
+    v, K, Kb = pipe.brick_vox, cfg.skip_fine_rounds, cfg.skip_brick_rounds
+    assert v == 5 and pipe.volume_grid.shape == (20, 20, 20)
+
+    if scene == "sphere":
+        grid = VolumeGrid(bbox=bbox, voxel_size=0.1)
+        centers = bbox.denormalize(grid.voxel_centers_normalized())
+        sdf = np.linalg.norm(centers - np.float32([0.3, 1.2, -0.2]), axis=-1)
+        vol = np.clip(0.45 - sdf, -limit, limit).astype(np.float32)
+    else:
+        vol = np.full((20, 20, 20), -limit, np.float32)
+        vol[19, 0, 7] = limit  # on three faces: no wraparound allowed
+
+    packed, _, occ, bsafe, _ = jax.jit(
+        lambda x: render_fn.bake(x, None, jnp.float32(limit)))(vol)
+
+    dist = _np_chebyshev(vol > 0.0)
+    occ_ref = (dist <= 1).reshape(4, v, 4, v, 4, v).any(axis=(1, 3, 5))
+    bsafe_ref = np.clip(_np_chebyshev(occ_ref) - 1, 0, Kb)
+    fine_ref = np.clip(dist - 1, 0, K)
+    bs_vox = np.repeat(np.repeat(np.repeat(bsafe_ref, v, 0), v, 1), v, 2)
+    field = np.maximum(fine_ref, bs_vox * v)
+    baked_ref = np.where(field > 0, -(2.0 + field), vol)
+
+    np.testing.assert_array_equal(np.asarray(occ), occ_ref)
+    np.testing.assert_array_equal(np.asarray(bsafe), bsafe_ref)
+    assert packed.half
+    np.testing.assert_array_equal(
+        np.asarray(packed.pairs).reshape(20, 20, 20), baked_ref)
+

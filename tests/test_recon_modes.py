@@ -3,14 +3,14 @@
 import numpy as np
 import pytest
 
-from rgbd_recon_tpu.calib.sensors import build_synthetic_calibration
-from rgbd_recon_tpu.core.config import PipelineConfig
-from rgbd_recon_tpu.core.grid import BoundingBox
-from rgbd_recon_tpu.ops.raymarch import ViewCamera
-from rgbd_recon_tpu.recon import TsdfPipeline
-from rgbd_recon_tpu.recon.points import PointsPipeline
-from rgbd_recon_tpu.recon.trigrid import TrigridPipeline
-from rgbd_recon_tpu.sensors.synthetic import (
+from rgbd_recon.calib.sensors import build_synthetic_calibration
+from rgbd_recon.core.config import PipelineConfig
+from rgbd_recon.core.grid import BoundingBox
+from rgbd_recon.ops.raymarch import ViewCamera
+from rgbd_recon.recon import TsdfPipeline
+from rgbd_recon.recon.points import PointsPipeline
+from rgbd_recon.recon.trigrid import TrigridPipeline
+from rgbd_recon.sensors.synthetic import (
     SyntheticScene,
     default_test_rig,
     render_rig_frames,

@@ -6,12 +6,12 @@ recon_integration.cpp:341-354, 468-484; kinect_client.cpp:362-376,
 import numpy as np
 import pytest
 
-from rgbd_recon_tpu.calib.sensors import build_synthetic_calibration
-from rgbd_recon_tpu.core.config import PipelineConfig
-from rgbd_recon_tpu.core.grid import BoundingBox
-from rgbd_recon_tpu.ops.raymarch import ViewCamera
-from rgbd_recon_tpu.recon import TsdfPipeline
-from rgbd_recon_tpu.sensors.synthetic import (
+from rgbd_recon.calib.sensors import build_synthetic_calibration
+from rgbd_recon.core.config import PipelineConfig
+from rgbd_recon.core.grid import BoundingBox
+from rgbd_recon.ops.raymarch import ViewCamera
+from rgbd_recon.recon import TsdfPipeline
+from rgbd_recon.sensors.synthetic import (
     SyntheticScene,
     default_test_rig,
     render_rig_frames,
@@ -107,8 +107,8 @@ def test_processing_toggle_uses_cached_variant(setup):
 def test_feedback_state_drives_mode_and_camera():
     """A packed FeedbackState round-trips the wire and yields a usable
     camera pose + recon mode switch (kinect_client.cpp:637-673)."""
-    from rgbd_recon_tpu.io.network import FEEDBACK_BYTES, FeedbackState
-    from rgbd_recon_tpu.recon.tsdf_pipeline import CamParams
+    from rgbd_recon.io.network import FEEDBACK_BYTES, FeedbackState
+    from rgbd_recon.recon.tsdf_pipeline import CamParams
 
     mat = np.eye(4, dtype=np.float32)
     mat[:3, 3] = (0.5, 1.0, 3.0)

@@ -7,18 +7,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rgbd_recon_tpu.calib.sensors import build_synthetic_calibration
-from rgbd_recon_tpu.core.camera import RGBDSensor, SensorRig
-from rgbd_recon_tpu.core.config import PipelineConfig
-from rgbd_recon_tpu.core.grid import BoundingBox
-from rgbd_recon_tpu.recon import TsdfPipeline
-from rgbd_recon_tpu.refine import (
+from rgbd_recon.calib.sensors import build_synthetic_calibration
+from rgbd_recon.core.camera import RGBDSensor, SensorRig
+from rgbd_recon.core.config import PipelineConfig
+from rgbd_recon.core.grid import BoundingBox
+from rgbd_recon.recon import TsdfPipeline
+from rgbd_recon.refine import (
     apply_pose,
     leave_one_out_volumes,
     pose_residual_stats,
     refine_poses,
 )
-from rgbd_recon_tpu.sensors.synthetic import (
+from rgbd_recon.sensors.synthetic import (
     SyntheticScene,
     default_test_rig,
     render_rig_frames,
@@ -107,7 +107,7 @@ def test_refinement_recovers_perturbed_pose():
 def _pose_error(poses_rec, E_rot, E_t):
     """Compose recovered correction with the injected error; return
     (residual translation m, residual rotation deg)."""
-    from rgbd_recon_tpu.refine.pose_ba import _rodrigues
+    from rgbd_recon.refine.pose_ba import _rodrigues
 
     R_rec = np.asarray(_rodrigues(jnp.asarray(poses_rec[:3])))
     t_rec = np.asarray(poses_rec[3:])
@@ -165,8 +165,8 @@ def test_refinement_recovers_rotation_and_translation_and_applies():
     # well-calibrated sensors sits at the same level, so parameter-space
     # recovery sharper than ~2 cm is not observable here. GN must REACH
     # that floor. (scripts/validate_pose_ba.py runs the sharp-recovery
-    # check at reference scale on the TPU.)
-    from rgbd_recon_tpu.refine.pose_ba import _rodrigues
+    # check at reference scale on the GPU.)
+    from rgbd_recon.refine.pose_ba import _rodrigues
 
     w_true = np.zeros(3, np.float32)
     w_true[1] = -th
@@ -192,7 +192,7 @@ def test_refinement_recovers_rotation_and_translation_and_applies():
 
     # close the loop: apply + re-fuse keeps every sensor at or near its
     # consensus floor (no sensor destroyed by the correction)
-    from rgbd_recon_tpu.refine.pose_ba import apply_pose_corrections
+    from rgbd_recon.refine.pose_ba import apply_pose_corrections
 
     pipe.update_calibration(apply_pose_corrections(pipe.calib, poses))
     volume2, maps2, counts2 = pipe.fuse(frames)

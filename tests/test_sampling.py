@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from rgbd_recon_tpu.ops.sampling import bilinear_2d, nearest_2d, trilinear_3d
+from rgbd_recon.ops.sampling import bilinear_2d, nearest_2d, trilinear_3d
 
 
 def _oracle_trilinear(vol, p):

@@ -5,11 +5,11 @@ scenes."""
 import jax.numpy as jnp
 import numpy as np
 
-from rgbd_recon_tpu.calib.sensors import build_synthetic_calibration
-from rgbd_recon_tpu.core.grid import BoundingBox, VolumeGrid
-from rgbd_recon_tpu.ops import tsdf
-from rgbd_recon_tpu.ops.bricks import mark_bricks, occupied_mask
-from rgbd_recon_tpu.sensors.synthetic import SyntheticScene, default_test_rig, render_rig_frames
+from rgbd_recon.calib.sensors import build_synthetic_calibration
+from rgbd_recon.core.grid import BoundingBox, VolumeGrid
+from rgbd_recon.ops import tsdf
+from rgbd_recon.ops.bricks import mark_bricks, occupied_mask
+from rgbd_recon.sensors.synthetic import SyntheticScene, default_test_rig, render_rig_frames
 
 BBOX = BoundingBox(min=(-1.0, 0.0, -1.0), max=(1.0, 2.2, 1.0))
 
@@ -176,15 +176,15 @@ def test_bricking_masks_unoccupied_to_clear_value():
 
 
 def test_brick_compact_integration_matches_dense():
-    """integrate_bricks (the TPU fast path) must reproduce the dense masked
+    """integrate_bricks (the fast path) must reproduce the dense masked
     integration exactly on the occupied set, and the clear value elsewhere."""
     import jax.numpy as jnp
 
-    from rgbd_recon_tpu.calib.sensors import build_synthetic_calibration
-    from rgbd_recon_tpu.core.config import PipelineConfig
-    from rgbd_recon_tpu.core.grid import BoundingBox
-    from rgbd_recon_tpu.recon import TsdfPipeline
-    from rgbd_recon_tpu.sensors.synthetic import (
+    from rgbd_recon.calib.sensors import build_synthetic_calibration
+    from rgbd_recon.core.config import PipelineConfig
+    from rgbd_recon.core.grid import BoundingBox
+    from rgbd_recon.recon import TsdfPipeline
+    from rgbd_recon.sensors.synthetic import (
         SyntheticScene,
         default_test_rig,
         render_rig_frames,
@@ -234,7 +234,7 @@ def test_brick_compact_integration_matches_dense():
 
 
 def test_occupied_brick_ids_capacity():
-    from rgbd_recon_tpu.ops.tsdf import occupied_brick_ids
+    from rgbd_recon.ops.tsdf import occupied_brick_ids
 
     counts = jnp.zeros((2, 3, 4), jnp.int32)
     counts = counts.at[0, 0, 0].set(99).at[1, 2, 3].set(50)
